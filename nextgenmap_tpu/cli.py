@@ -23,7 +23,7 @@ def build_parser():
 
     p = argparse.ArgumentParser(
         prog="ngm-tpu",
-        description="TPU-native short-read mapper (NextGenMap capabilities)",
+        description="JAX short-read mapper (NextGenMap capabilities)",
     )
     sub = p.add_subparsers(dest="verb")
 
@@ -78,15 +78,12 @@ def build_parser():
         g.add_argument("--gap-extend-penalty", type=int,
                        default=D.gap_extend_penalty)
         g.add_argument("--affine", action="store_true",
-                       help="accepted for reference compatibility: the TPU "
+                       help="accepted for reference compatibility: the "
                             "banded-SW kernel is ALWAYS affine (requires "
                             "gap open >= gap extend; extend > open is "
                             "rejected at validation)")
         g.add_argument("--end-to-end", action="store_true",
                        help="whole-read (glocal) alignment, no soft clipping")
-        g.add_argument("--sw-backend", choices=["xla", "pallas"],
-                       default=D.sw_backend,
-                       help="banded-SW kernel implementation")
 
         g = sp.add_argument_group("paired-end")
         g.add_argument("-I", "--min-insert-size", type=int, default=D.min_insert_size)
@@ -105,12 +102,13 @@ def build_parser():
                        help="devices for data-parallel mapping (0 = all)")
         g.add_argument("-g", "--gpu", metavar="IDS", default=None,
                        help="reference-compatible accelerator selector "
-                            "(comma-separated ids); maps to TPU chips: "
-                            "'-g 0,1' = data-parallel over 2 devices")
+                            "(comma-separated ids); only the COUNT is "
+                            "used: '-g 1,3' = data-parallel over the first "
+                            "2 devices")
         g.add_argument("--batch-size", type=int, default=D.batch_size)
         g.add_argument("--megabatch", type=int, default=D.megabatch,
                        help="fold K read batches into one device program "
-                            "(amortizes per-dispatch latency; 0 = off)")
+                            "(one dispatch per K batches; 0 = off)")
         g.add_argument("--read-len", type=int, default=0,
                        help="static padded read length (0 = infer)")
         g.add_argument("--corridor", type=int, default=0)
@@ -165,13 +163,13 @@ def build_parser():
 def config_from_args(a) -> NgmConfig:
     devices = a.devices
     if getattr(a, "gpu", None):
-        # ref -g takes explicit device ids; on TPU the mesh uses the first N
-        # local chips, so only the COUNT carries over
+        # ref -g takes explicit device ids; the mesh uses the first N local
+        # devices, so only the COUNT carries over
         devices = len([x for x in a.gpu.split(",") if x != ""])
     rks = a.read_kmer_skip
     if rks is None:
         # reference-style genome striding (--kmer-skip > 1) implies stride-1
-        # read enumeration; otherwise use the TPU-first read-side default
+        # read enumeration; otherwise use the read-side stride default
         rks = 1 if a.kmer_skip > 1 else NgmConfig().read_kmer_skip
     return NgmConfig(
         kmer=a.kmer, kmer_skip=a.kmer_skip, read_kmer_skip=rks,
@@ -183,7 +181,7 @@ def config_from_args(a) -> NgmConfig:
         match_bonus=a.match_bonus, mismatch_penalty=a.mismatch_penalty,
         gap_read_penalty=a.gap_read_penalty, gap_ref_penalty=a.gap_ref_penalty,
         gap_extend_penalty=a.gap_extend_penalty, affine=a.affine,
-        end_to_end=a.end_to_end, sw_backend=a.sw_backend,
+        end_to_end=a.end_to_end,
         min_insert_size=a.min_insert_size, max_insert_size=a.max_insert_size,
         pair_score_cutoff=a.pair_score_cutoff,
         bs_mapping=a.bs_mapping, bs_cutoff=a.bs_cutoff, slam_seq=a.slam_seq,
@@ -202,6 +200,9 @@ def config_from_args(a) -> NgmConfig:
 
 
 def main(argv: list[str] | None = None) -> int:
+    from nextgenmap_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     argv = list(sys.argv[1:] if argv is None else argv)
     # default verb is `map` (like the reference binary)
     if argv and argv[0] not in ("map", "index", "-h", "--help"):

@@ -4,7 +4,7 @@ Reference analog: the two-pass CompactPrefixTable build
 (ref:src/CompactPrefixTable.cpp) — "pass 1 counts per-kmer occurrences ->
 offset array; pass 2 fills position lists" — which SURVEY.md §3.1 marks HOT
 (whole-genome scan x2).  The host numpy build (kmer_index.py) mirrors that
-design; this module is the TPU-native form: the two passes become a
+design; this module is the device form: the two passes become a
 scatter-add + cumsum + stable sort_key_val on device, so building the E. coli
 index takes milliseconds instead of minutes and per-shard GRCh38 builds run
 where the shard lives.
@@ -52,6 +52,11 @@ def build_index_device(
     collapses are strand-asymmetric).
     """
     G = genome.shape[0]
+    if G >= (2**30 if canonical else 2**31):
+        raise ValueError(
+            f"genome of {G} bases too large for the int32 device index "
+            "build; shard it (--index-shards)"
+        )
     nb = 4**k
     Q = (G - k) // skip + 1
     c = genome.astype(jnp.int32)

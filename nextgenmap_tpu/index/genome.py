@@ -6,8 +6,8 @@ padding gaps into one flat coordinate space, provides abs-pos <->
 (chrom, offset) conversion and corridor extraction, and memoizes the encoded
 form on disk next to the FASTA (`<ref>-enc.<v>.ngm`).
 
-TPU-native differences: codes are one uint8 per base (see io/encode.py) so
-the genome is a single device array in HBM and corridor extraction is a
+Device differences: codes are one uint8 per base (see io/encode.py) so
+the genome is a single device array and corridor extraction is a
 batched dynamic-slice gather on device; the host-side ``extract`` here exists
 for SAM emission (MD tags) and tests.
 """

@@ -7,9 +7,9 @@ the "CSSearchTable" of BASELINE.json: a hash table from 13-mers (k in
 lists), with over-frequent k-mers dropped (repeat masking), serialized to
 disk next to the reference and mmap-reloaded.
 
-TPU-native form: direct-addressed CSR — ``offsets[4^k + 1]`` (int64 on host,
+Device form: direct-addressed CSR — ``offsets[4^k + 1]`` (int64 on host,
 int32 on device) and a flat ``positions[]`` (uint32) — held as two device
-arrays in HBM.  A lookup for a whole read batch is one vectorized gather; the
+arrays.  A lookup for a whole read batch is one vectorized gather; the
 frequency cap at build time bounds per-kmer fan-out so the device-side gather
 of the first ``max_kmer_fanout`` positions per k-mer stays a dense static
 shape (SURVEY.md §2 component 7).

@@ -3,7 +3,7 @@
 Reference analog: the 2-bit encoder inside SequenceProvider
 (ref:src/SequenceProvider.cpp).  The reference packs 2 bits/base; we keep one
 code per byte (uint8) so device-side gathers and substitution lookups stay a
-single cheap `take` — 3.1 GB for GRCh38 fits HBM, and a packed variant can be
+single cheap `take` — 3.1 GB for GRCh38 fits device memory, and a packed variant can be
 added behind the same API if memory pressure demands.
 
 Codes: A=0 C=1 G=2 T=3, anything else (N, IUPAC) = 4.  Code 4 doubles as the

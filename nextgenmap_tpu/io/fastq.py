@@ -333,7 +333,7 @@ def batch_paired(
     batch_size must be even; rows 2i/2i+1 hold the two mates of pair i.
     skip/count are in READS (must be even — enforced by the caller).
     Uses the native chunk parser per file when available (the Python
-    per-record parse capped paired host throughput at ~20k reads/s).
+    per-record parse is much slower).
     """
     if batch_size % 2:
         raise ValueError("paired batch_size must be even")

@@ -158,6 +158,37 @@ def simulate_reads_fast(
     return codes, pos.astype(np.int64), strand
 
 
+def simulate_corridors(
+    n: int,
+    read_len: int,
+    band: int,
+    snp_rate: float = 0.02,
+    indel_rate: float = 0.002,
+    seed: int = 0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Banded-SW inputs with a real alignment in every row.
+
+    Returns (reads [n, read_len], corridors [n, read_len + band]) uint8
+    codes 0..3: read i is corridor i from a random offset in the first half
+    of the band, with 1 bp indels and SNPs at the given rates.
+    """
+    rng = np.random.default_rng(seed)
+    T = read_len + band
+    ref = rng.integers(0, 4, (n, T), dtype=np.int64).astype(np.uint8)
+    off = rng.integers(0, max(1, band // 2), n)
+    reads = np.empty((n, read_len), np.uint8)
+    for i in range(n):
+        seg = ref[i, off[i]:]
+        seg = seg[rng.random(seg.size) >= indel_rate / 2]          # deletions
+        ins = np.nonzero(rng.random(seg.size) < indel_rate / 2)[0]
+        seg = np.insert(seg, ins, rng.integers(0, 4, ins.size))    # insertions
+        reads[i] = seg[:read_len]  # >= read_len: off < band/2, few deletions
+    snp = rng.random(reads.shape) < snp_rate
+    shift = rng.integers(1, 4, reads.shape)
+    reads = np.where(snp, (reads + shift) % 4, reads).astype(np.uint8)
+    return reads, ref
+
+
 def write_fastq(path: str, reads: list[SimRead]) -> None:
     from nextgenmap_tpu.io.encode import decode_seq
 

@@ -2,8 +2,8 @@
 //
 // Reference analog: the reference's host runtime is 100% C++ — kseq.h FASTQ
 // parsing (ref:src/kseq.h, component 25) and SAMWriter record assembly
-// (ref:src/SAMWriter.cpp, component 11).  The TPU build keeps the device
-// pipeline in JAX/Pallas but, per the same division of labor, runs the two
+// (ref:src/SAMWriter.cpp, component 11).  This build keeps the device
+// pipeline in JAX but, per the same division of labor, runs the two
 // host hot loops natively: (1) FASTQ/FASTA chunk parsing + 2-bit encoding
 // into the fixed-shape [B, L] batch buffers the jitted step consumes, and
 // (2) SAM record formatting (CIGAR RLE, MD/NM walk, line assembly) from the

@@ -8,16 +8,15 @@ region (scaled by --sensitivity) as Candidate Mapping Regions.  The reference
 counts BOTH strands in one table and thresholds against the single best
 region; we do the same.
 
-TPU-native design (DESIGN.md rules 1-8).  The ragged CSR fan-out is the
-enemy: a dense [B, kmers, K] gather wastes >95% of its random HBM traffic
-when the mean CSR row length is <1 (E. coli at k=13: 2.3M positions over 67M
-rows), and XLA lowers big gathers element-serially (~40ns/elem measured on
-v5e).  So hits are COMPACTED first:
+Device design (DESIGN.md rules 1-8).  The ragged CSR fan-out is the
+enemy: a dense [B, kmers, K] gather wastes >95% of its random device-memory
+traffic when the mean CSR row length is <1 (E. coli at k=13: 2.3M positions
+over 67M rows).  So hits are COMPACTED first:
 
   1. Per-kmer CSR row lengths via two offset lookups; per-kmer cap K.
   2. Exclusive prefix-sum assigns each real hit a slot h < H (static per-read
      cap).  Slot ownership (which kmer owns slot h) is a dense [B, H, Qt]
-     compare-and-sum — pure VPU work, no gather.
+     compare-and-sum — elementwise work, no gather.
   3. ONE [B, H] element gather fetches exactly the real positions.
   4. Diagonal quantization; strand-tagged vote values (strand in a high bit)
      so one sort + one stable top_k yields the merged candidate list with
@@ -25,7 +24,7 @@ v5e).  So hits are COMPACTED first:
   5. DOUBLE-VOTE pair-merge: every hit votes for buckets b and b−1, so the
      vote count of b equals hits(b) + hits(b+1) with no post-hoc gather.
   6. Run lengths of the sorted votes via ONE forward cummax, evaluated at run
-     ENDS (reverse/flipped scans compile pathologically on TPU).
+     ENDS (no reverse/flipped scan).
 
 Every static cap reports an overflow count so lost candidates are auditable.
 """
@@ -74,8 +73,7 @@ PACK_MAX_POSITIONS = 1 << (32 - PACK_CNT_BITS)  # o0 must fit the high bits
 def pack_offsets(offsets: jax.Array, max_freq, fanout_cap: int):
     """Pack CSR (o0, row length) pairs into ONE uint32 table, or None.
 
-    Element gathers are the CS hot spot on TPU (~15-40 ns each, serial); the
-    plain layout needs TWO offset gathers per k-mer (o0 and o1).  Packing
+    The plain layout needs TWO offset gathers per k-mer (o0 and o1).  Packing
     `o0 << 6 | min(len, 63)` halves that.  Repeat masking (row length >
     max_freq => treat as empty) is baked in at pack time — identical to the
     lookup-time mask since both use the run's max_kmer_freq.  Only valid
@@ -159,13 +157,12 @@ def _slot_owners_dense1(cum, o0, payload, H, transposed=False):
     the owner (qp = q*2+payload is increasing in q, so max over eligible
     q == last eligible q == dense's sum(ge)-1, including cnt==0 ties)
     already yields qid — and delta/payload for H slots are then ONE flat
-    bandwidth-bound element gather (~35 us/1M elements, BASELINE.md round-2
-    correction), not another dense pass.  Unlike bisect there is no
+    bandwidth-bound element gather, not another dense pass.  Unlike bisect there is no
     serialized gather chain: one dense pass, one gather, done.
 
     transposed=True lays the dense tensor out [B, Qt, H] (reduce over the
-    MIDDLE axis, H minor): the VPU accumulates whole 128-lane rows instead
-    of cross-lane-reducing the (padded) Qt minor axis.
+    MIDDLE axis, H minor): whole rows accumulate elementwise instead of a
+    reduction over the (padded) Qt minor axis per output element.
     """
     B, Qt = cum.shape
     harange = jax.lax.broadcasted_iota(jnp.int32, (B, H), 1)
@@ -188,8 +185,8 @@ def _slot_owners_dense1(cum, o0, payload, H, transposed=False):
 def _slot_owners_sorted(cum, o0, payload, H):
     """Slot ownership via a rank-merge: two sorts, no scatters/gathers.
 
-    The dense variant's [B, H, Qt] tensors scale ~H·Qt in HBM traffic and
-    collapse at gigabase hit caps (measured 72 s/batch at H=960).  Here the
+    The dense variant's [B, H, Qt] tensors scale ~H·Qt in memory traffic
+    and collapse at gigabase hit caps.  Here the
     nondecreasing `cum` row is MERGED with the slot iota by one sort (even
     keys = k-mer boundaries, odd keys = slots, so cum <= h ties resolve
     inclusively); a cummax over int64-packed (qid, flip, o0-cum) payloads
@@ -229,9 +226,9 @@ def _slot_owners_scatter(cum, o0, payload, H, cnt):
     across the k-mer's run of slots.  Writers have strictly increasing cum,
     so at most one k-mer writes per slot, and the fill carries (qid, flip,
     o0-cum) together.  Layout matters as much as the pass count: the [B,Qt,H]
-    tensors reduce over the MIDDLE axis with H minor, so the VPU accumulates
-    whole 128-lane rows, where the dense variant reduces over its minor axis
-    (a cross-lane reduction per output element).
+    tensors reduce over the MIDDLE axis with H minor, so whole rows
+    accumulate elementwise, where the dense variant reduces over its minor
+    axis (a reduction per output element).
     """
     B, Qt = cum.shape
     harange = jax.lax.broadcasted_iota(jnp.int32, (B, H), 1)
@@ -262,10 +259,8 @@ def _slot_owners_bisect(cum, o0, payload, H):
     NONDECREASING along Qt (it is a prefix sum).  "The last k-mer q with
     cum[q] <= h" is therefore searchsorted(cum, h, side=right)-1 — computed
     for all [B, H] slots with ceil(log2(Qt)) rounds of FLAT element gathers
-    (~35 us per 1M elements on v5e, BASELINE.md round-2 correction) instead
-    of dense/scatter compare-reductions over [B, H, Qt] (the measured CS
-    wall: 28.8 of 47.2 ms at config-2 shapes) or the two [B, Qt+H] sorts of
-    the rank-merge.  Exactly dense semantics, including cnt==0 ties (the
+    instead of dense/scatter compare-reductions over [B, H, Qt] or the two
+    [B, Qt+H] sorts of the rank-merge.  Exactly dense semantics, including cnt==0 ties (the
     last tied q wins both there and under side=right).  Scales to gigabase
     hit caps: O(H log Qt) with no dense tensor at any H.
     """
@@ -293,10 +288,9 @@ def _slot_owners_bisect(cum, o0, payload, H):
     return qid, pidx, pay_at
 
 
-# above this hit cap the dense [B, H, Qt] ownership tensors cost more HBM
-# traffic than the alternatives; below it dense WINS on chip (measured r3:
-# E. coli H=128 bench 178.7k dense vs 76.3k bisect — the bisect gathers'
-# latency chain beats the dense compare-sums only at large H)
+# above this hit cap the dense [B, H, Qt] ownership tensors cost more
+# memory traffic than the alternatives; below it dense won.  Tuned on
+# another chip; not measured on the H100.
 _DENSE_H_MAX = 256
 # ownership strategy: "auto" = dense at H <= _DENSE_H_MAX, else bisect;
 # "dense"/"sorted"/"scatter"/"bisect" force a variant (A/B probes + test
@@ -310,10 +304,8 @@ _OWNERS_MODE = _os.environ.get("NGM_OWNERS", "auto")
 def _slot_owners(cum, o0, payload, H, cnt):
     mode = _OWNERS_MODE
     if mode == "auto":
-        # measured r3 on chip: dense wins below 256 (46.8 vs scatter 50.7
-        # vs bisect 116.4 ms full-step at config-2); above it the dense
-        # tensors collapse (72 s/batch at H=960, r2) and the rank-merge
-        # sort is the proven fallback
+        # dense below _DENSE_H_MAX; above it the dense tensors grow as
+        # H x Qt and the rank-merge sort takes over
         mode = "dense" if H <= _DENSE_H_MAX else "sorted"
     if mode == "bisect":
         return _slot_owners_bisect(cum, o0, payload, H)
@@ -330,10 +322,8 @@ def _slot_owners(cum, o0, payload, H, cnt):
     return _slot_owners_sorted(cum, o0, payload, H)
 
 
-WORD_W = 8  # positions per gathered row (32 B); measured on v5e the XLA
-            # gather costs ~11-24 ns PER DESCRIPTOR nearly independent of row
-            # width (tools/probe_gather3.py row_w sweep), so 8-wide rows cut
-            # the CS position-fetch wall ~(hits-per-word)x
+WORD_W = 8  # positions per gathered row (32 B): one row gather fetches up
+            # to 8 hits (tuned on another chip; not measured on the H100)
 
 
 def pad_positions8(positions):
@@ -368,11 +358,8 @@ def _compact_hits(
     pass, second table pre-shifted into the shared positions array); kmer
     slots >= table_split look up the second table.
 
-    word_cap > 0 enables the WORD-GATHER path (round 4): the [B, H] element
-    gather from `positions` is the measured CS wall on v5e (~11-24 ns per
-    gather DESCRIPTOR, element-serial, independent of table size —
-    tools/probe_gather3.py), but descriptors fetching 8-wide rows cost the
-    same as single elements.  So positions are fetched as [B, HW] rows of
+    word_cap > 0 enables the WORD-GATHER path: instead of the [B, H]
+    element gather from `positions`, positions are fetched as [B, HW] rows of
     WORD_W=8 (each CSR row spans ceil(cnt/8)+straddle words; HW = word_cap
     is the per-read word budget, sized from index density like hit_cap),
     then compacted back to the SAME [B, H] hit-slot layout with a dense
@@ -458,11 +445,10 @@ def _compact_hits(
         # hits whose word fell past the word budget carry garbage: drop them
         # (counted via word_overflow below)
         valid &= ws < HW
-        # compaction [B, HW, 8] words -> [B, H] hit slots as an int-exact MXU
+        # compaction [B, HW, 8] words -> [B, H] hit slots as an int-exact
         # einsum: positions split into bytes (0..255 — exact in bf16, the
         # ops/kmer.py trick), one-hot sel rows have a single 1 so every f32
-        # accumulation is one product.  The 8-pass VPU select this replaces
-        # measured ~5 ms at [4096, 192, 96].
+        # accumulation is one product (replaces an 8-pass select).
         wsc = jnp.where(valid, ws, 0)
         sel = (wsc[:, :, None] == warange[:, None, :]).astype(jnp.bfloat16)
         wbytes = jax.lax.bitcast_convert_type(words, jnp.uint8)

@@ -5,10 +5,9 @@ reads in the candidate-search loop (ref:src/CS.cpp) and corridor extraction
 from the encoded genome (ref:src/SequenceProvider.cpp DecodeRefInternal).
 Both read a short CONTIGUOUS run of elements at a computed offset.
 
-TPU-native form: XLA lowers `table[starts[..., None] + iota(K)]` to an
-element-serial gather (~40 ns/element measured on v5e — hundreds of ms per
-batch).  Expressed instead as one `lax.gather` with `slice_sizes=(K,)`, each
-index pulls K contiguous elements as vector loads.  Tables are padded by the
+Device form: instead of `table[starts[..., None] + iota(K)]` (one gather
+index per ELEMENT), one `lax.gather` with `slice_sizes=(K,)` pulls K
+contiguous elements per index.  Tables are padded by the
 window size so starts never need clamping (a clamped start would silently
 shift the window and corrupt valid lanes).
 """
@@ -55,8 +54,8 @@ def pad_table(table: jax.Array, size: int, fill) -> jax.Array:
 def permute_small(values: jax.Array, order: jax.Array) -> jax.Array:
     """values[b, order[b, i]] for small trailing dims, without a gather.
 
-    [B, C] x [B, C] -> [B, C] via a one-hot select-sum (C^2 VPU work per
-    row beats TPU's ~40ns/element gather for C up to a few hundred).
+    [B, C] x [B, C] -> [B, C] via a one-hot select-sum (C^2 elementwise
+    work per row, for C up to a few hundred).
     """
     B, C = values.shape
     onehot = (
@@ -68,12 +67,13 @@ def permute_small(values: jax.Array, order: jax.Array) -> jax.Array:
 
 
 def take_rows_mxu(stack: jax.Array, rows: jax.Array) -> jax.Array:
-    """stack[rows[m], :] for small-code uint8 tables, on the MXU.
+    """stack[rows[m], :] for small-code uint8 tables, as one matmul.
 
     A one-hot [M, N] bf16 matmul against the [N, L] table replaces M
-    per-row window gathers (~0.57 µs each even via DMA) with one matmul
-    (~tens of µs).  Exact: one-hot entries and codes 0..4 are exact in
-    bf16 and each output element sums exactly one nonzero product.
+    per-row gathers.  Exact: one-hot entries and codes 0..4 are exact in
+    bf16, accumulation is f32 and each output element sums exactly one
+    nonzero product.  Chosen on another chip; not measured against
+    `jnp.take` on the H100 end to end.
     """
     N = stack.shape[0]
     onehot = (
@@ -92,7 +92,7 @@ def select_rows(stack: jax.Array, sel: jax.Array) -> jax.Array:
     """stack[b, sel[b], :] without an element-serial gather.
 
     stack: [B, C, ...], sel: [B] int — returns [B, ...] via a one-hot
-    mask-and-sum (pure VPU work; C is small).
+    mask-and-sum (elementwise work; C is small).
     """
     B, C = stack.shape[:2]
     onehot = (

@@ -3,7 +3,7 @@
 Reference analog: ``CS::PrefixIteration`` (ref:src/CS.cpp) — the per-read
 k-mer enumerator feeding index lookups.  Here it is a jitted rolling-hash
 over the whole ``[B, L]`` batch at once; k is static so the window combine
-unrolls to k vector ops on the VPU.
+unrolls to k vector ops.
 
 Read-side k-mers are enumerated at stride ``read_kmer_skip`` (kmer_skip and
 read_kmer_skip must not both exceed 1, or stride phases can miss a locus;
@@ -27,13 +27,11 @@ import numpy as np
 
 from nextgenmap_tpu.io.encode import CODE_A, CODE_C, CODE_G, CODE_T
 
-# k-mer windowing backend: "mxu" computes the rolling hash as banded MXU
-# matmuls (see _window_matmul), "slice" is the original strided-lane-slice
-# loop.  Truth-protocol A/B on v5e (round 4): the slice loop's 13 strided
-# relayouts cost 9.8 ms/batch at [4096, 150] stride 2 — the single biggest
-# piece of the CS stage — vs ~0.3 ms for the matmuls.  Bit-identical
-# (coefficients are powers of two, every accumulation < 2^24, so bf16xbf16
-# -> f32 MXU products are exact; tests assert equality).
+# k-mer windowing backend: "mxu" computes the rolling hash as banded bf16
+# matmuls (see _window_matmul), "slice" is the strided-slice loop.  The
+# default was chosen on another chip; not measured on the H100 end to end.
+# Bit-identical (coefficients are powers of two, every accumulation < 2^24,
+# so bf16 x bf16 -> f32 products are exact; tests assert equality).
 _KMER_BACKEND = os.environ.get("NGM_KMER_BACKEND", "mxu")
 
 
@@ -49,7 +47,7 @@ def _band_weights(L: int, Q: int, k: int, stride: int, coeffs) -> np.ndarray:
 
 def _window_matmul(x: jax.Array, L: int, Q: int, k: int, stride: int,
                    coeffs: np.ndarray) -> jax.Array:
-    """Σ_j coeffs[j] * x[:, q*stride + j] for all windows, on the MXU.
+    """Σ_j coeffs[j] * x[:, q*stride + j] for all windows, as one matmul.
 
     x must hold small non-negative ints (codes/flags); coeffs power-of-two
     scaled so every product and windowed sum stays < 2^24 (f32-exact).
@@ -162,7 +160,7 @@ def extract_kmers_canonical(codes: jax.Array, lengths: jax.Array, k: int,
         bad = (c >= 4).astype(jnp.int32)
         cm = jnp.where(bad > 0, 0, c)
         vals = _rolling_kmers_mxu(cm, L, Q, k, stride)
-        # revcomp value: Σ (3 - c_j) << 2j — compute Σ c_j << 2j on the MXU
+        # revcomp value: Σ (3 - c_j) << 2j — compute Σ c_j << 2j by matmul
         # and subtract from the all-3s constant (3-c of an N window is
         # garbage either way; ok masks it)
         rsum = _rolling_kmers_mxu(cm, L, Q, k, stride, rev=True)

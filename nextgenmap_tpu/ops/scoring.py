@@ -51,9 +51,9 @@ def matrices_are_simple(mats: np.ndarray) -> bool:
 
     The DEFAULT mode (no bisulfite/SLAM asymmetry) always qualifies, and the
     SW kernels then compute substitution scores with a single equality
-    compare instead of 5 per-code coefficient planes (~10 fewer VPU ops per
-    DP cell — the dominant term of the measured op mix, BASELINE.md roofline
-    row).  Checked once on the host; a static jit flag selects the path.
+    compare instead of 5 per-code coefficient planes (~10 fewer elementwise
+    ops per DP cell).  Checked once on the host; a static jit flag selects
+    the path.
     """
     flat = np.asarray(mats).reshape(-1, 8, 8)
     m0 = flat[0]

@@ -3,8 +3,8 @@
 Reference analog: the OpenCL corridor-SW kernels SWOcl (score only,
 ref:src/SWOcl.cpp) and SWOclCigar (traceback, ref:src/SWOclCigar.cpp), and
 the SSE CPU backend that plays the same role (SURVEY.md §2 components 18-20).
-This module is the pure-jax.lax "CPU backend" of our stack: it runs on any
-JAX backend, defines the exact semantics the Pallas kernels must reproduce
+This module is the pure-jax.lax kernel of our stack: it runs on any JAX
+backend, defines the exact semantics any hand-written kernel must reproduce
 bit-for-bit, and is itself oracle-tested against a scalar NumPy DP.
 
 Band parametrization: query row i (0-based), band offset o in [0, W);
@@ -52,7 +52,7 @@ OP_NONE = 255
 # dir byte layout: bits 0-1 H-source (0 stop, 1 diag, 2 E/up, 3 F/left),
 # bit 2: E extends (vs opens), bit 3: F extends (vs opens),
 # bit 4: exact base match at this cell (lets the backwalk skip re-reading
-# query/ref — every per-step gather in the walk is a TPU serialization point)
+# query/ref — every per-step gather in the walk is a serial dependency)
 
 
 class ScoreResult(NamedTuple):
@@ -80,8 +80,8 @@ class AlignResult(NamedTuple):
 def _sub_scores(flat, n_mats, moff, qi, rw, simple=False):
     """Substitution scores without a gather.
 
-    TPU gathers are element-serial, and the naive `flat[qi*8 + rw]` lookup
-    inside the row scan dominated the whole kernel (~80% of map_step time).
+    A naive `flat[qi*8 + rw]` lookup inside the row scan is a gather per
+    DP row.
     The alphabet is 5 codes and the matrix count is tiny and static, so the
     lookup is instead built from vector compares/selects: per row compute
     Rq[c] = S[msel, qi, c] with M*25 scalar-coefficient selects on [B], then
@@ -89,8 +89,8 @@ def _sub_scores(flat, n_mats, moff, qi, rw, simple=False):
 
     simple=True (static; scoring.matrices_are_simple) is the DEFAULT-mode
     fast path: every matrix is match-on-diagonal/one-mismatch-elsewhere, so
-    the whole lookup is ONE equality compare + select — ~10 fewer VPU ops
-    per DP cell than the 5-plane combine.
+    the whole lookup is ONE equality compare + select — ~10 fewer
+    elementwise ops per DP cell than the 5-plane combine.
     """
     if simple:
         match = flat[0]       # S[0, 0]
@@ -167,7 +167,7 @@ def banded_sw_score(
     mode: str = "local",
     simple: bool = False,
 ) -> ScoreResult:
-    """Score-only banded SW over a batch. ~L sequential steps of [B, W] VPU work.
+    """Score-only banded SW over a batch: ~L sequential steps of [B, W] work.
 
     `matrix` may be [8,8] (shared) or [M,8,8] with per-row selector `msel`.
     mode="glocal" (--end-to-end): whole query consumed, best cell taken from
@@ -224,9 +224,8 @@ def banded_sw_align(
 ) -> AlignResult:
     """Banded SW with full traceback: direction matrix + vectorized backwalk.
 
-    The direction matrix is [B, L, W] uint8 (the Pallas version packs this
-    tighter); the backwalk is a lax.while_loop of at most L+W steps with [B]
-    gathers per step — only alignment survivors should be fed here.
+    The direction matrix is [B, L, W] uint8; the backwalk is a
+    lax.while_loop of at most L+W steps with [B] gathers per step — only alignment survivors should be fed here.
     mode="glocal" (--end-to-end): whole query consumed, no clipping; the
     backwalk ends when the query is exhausted instead of at a 0 cell.
     """

@@ -1,7 +1,7 @@
 """Multi-host mapping: per-host read sharding + deterministic output merge.
 
 Reference analog: none — NextGenMap is strictly single-node (SURVEY.md §2.2:
-"Multi-node / distributed: NO"); this is a new capability of the TPU build
+"Multi-node / distributed: NO"); this is a new capability of this build
 (SURVEY.md §2.3, §5.8).  The design exploits that read mapping is
 embarrassingly parallel over reads:
 
@@ -17,8 +17,7 @@ embarrassingly parallel over reads:
   "dp" mesh (parallel/dp.py).  Cross-host collectives are only needed when
   the INDEX is sharded across hosts (parallel/index_shard.py over a global
   mesh) — for that, `init_distributed` brings up `jax.distributed` so
-  `jax.devices()` spans the pod slice (ICI within a slice, DCN across
-  hosts, per SURVEY.md §5.8).
+  `jax.devices()` spans every host's devices (SURVEY.md §5.8).
 """
 
 from __future__ import annotations
@@ -43,7 +42,7 @@ def init_distributed(coordinator: str, num_processes: int, process_id: int) -> N
 
     try:
         # multi-process CPU meshes (tests; SURVEY.md §4 item 6) need a CPU
-        # collectives implementation; harmless on TPU (TPU uses ICI/DCN)
+        # collectives implementation; GPUs use their own (NCCL)
         jax.config.update("jax_cpu_collectives_implementation", "gloo")
     except Exception:  # older/newer jax without the option
         pass

@@ -657,6 +657,14 @@ def merge_sharded_results(
     # locus, or the winner shard's own local second
     win_gp = _take_shard(gp_all, winner)
     win_sc = _take_shard(sc_all, winner)
+    if paired:
+        # a proper pair comes whole from the shard owning mate 1, so mate 2
+        # may lie past that shard's core, in its halo: take its score and
+        # position from that shard whether or not the shard owns it
+        pair_win = jnp.repeat(any_proper, 2)
+        raw_sc = jnp.where(has_aln, stk.score, -1)
+        win_gp = jnp.where(pair_win, _take_shard(gpos, winner), win_gp)
+        win_sc = jnp.where(pair_win, _take_shard(raw_sc, winner), win_sc)
     # unsigned distance (uint32 subtraction wraps; use max-min)
     far = (
         jnp.maximum(gp_all, win_gp[None]) - jnp.minimum(gp_all, win_gp[None])

@@ -1,16 +1,17 @@
 """Device mesh construction.
 
 Reference analog: none — the reference is single-node pthreads
-(ref:src/NGMThreads.cpp); this layer is the new capability the TPU build
-introduces (SURVEY.md §2.3, §5.8).  Meshes:
+(ref:src/NGMThreads.cpp); this layer is a new capability of this build
+(SURVEY.md §2.3, §5.8).  Meshes:
 
 - 1-D ("dp",): data parallelism over reads — configs 1-3.
 - 2-D ("dp", "ish"): reads sharded over dp, the k-mer index + genome sharded
-  by position range over ish — config 4 (GRCh38 across hosts/chips).
+  by position range over ish — config 4 (GRCh38 across hosts/devices).
 
-Multi-host: call jax.distributed.initialize() before make_mesh(); jax.devices()
-then spans the slice and the same code paths apply (DCN for cross-host, ICI
-within a slice, handled by XLA's collective lowering).
+Devices are taken in jax order; the mesh follows the algorithm only (the
+devices of one host are joined all to all).  Multi-host: call
+jax.distributed.initialize() before make_mesh(); jax.devices() then spans
+every host and the same code paths apply (XLA's collective lowering).
 """
 
 from __future__ import annotations

@@ -243,10 +243,14 @@ def test_sharded_index_memoization(shard_dir, tmp_path):
     assert len(caches) == 2, caches
 
 
-def test_sharded_scan_compile_failure_falls_back(tmp_path):
-    """If the fused sharded-scan program fails to compile (environmental
-    remote-compile crashes on giant programs, e.g. bisulfite x shards), the
-    Mapper permanently falls back to the host-driven per-phase loop."""
+def test_sharded_scan_compile_failure_falls_back(monkeypatch):
+    """A device error from the fused sharded-scan program propagates: the
+    Mapper does not switch to the host-driven shard loop behind the user's
+    back (on a GPU an out-of-memory error is the same exception type, so a
+    catch would turn a failure into a silently different program).  The
+    host loop stays reachable explicitly (NGM_SHARD_LOOP=host) and is
+    bit-identical to the scan.  The name is kept from the test of the
+    fallback this replaced, so the test's history stays one line."""
     import jax
     import numpy as np
 
@@ -272,22 +276,21 @@ def test_sharded_scan_compile_failure_falls_back(tmp_path):
     want = mapper.map_batch(codes, lens)
 
     fresh = Mapper(cfg, gobj, 100, index=idx)
-    orig = models.mapper.map_step_sharded_scan
     calls = {"n": 0}
 
     def boom(*a, **k):
         calls["n"] += 1
-        raise jax.errors.JaxRuntimeError("synthetic compile crash")
+        raise jax.errors.JaxRuntimeError("synthetic device error")
 
-    models.mapper.map_step_sharded_scan = boom
-    try:
-        got = fresh.map_batch(codes, lens)
-        again = fresh.map_batch(codes, lens)   # must not retry the scan
-    finally:
-        models.mapper.map_step_sharded_scan = orig
-    assert calls["n"] == 1
+    with monkeypatch.context() as mp:
+        mp.setattr(models.mapper, "map_step_sharded_scan", boom)
+        for _ in range(2):        # every call reaches the scan and fails
+            with pytest.raises(jax.errors.JaxRuntimeError):
+                fresh.map_batch(codes, lens)
+    assert calls["n"] == 2
+
+    monkeypatch.setenv("NGM_SHARD_LOOP", "host")
+    got = fresh.map_batch(codes, lens)
     for f in ("mapped", "pos", "strand", "score", "mapq"):
         assert np.array_equal(np.asarray(getattr(want, f)),
                               np.asarray(getattr(got, f))), f
-        assert np.array_equal(np.asarray(getattr(want, f)),
-                              np.asarray(getattr(again, f))), f

@@ -7,6 +7,7 @@ valid window (invalid windows are ok-masked by every consumer).
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
@@ -22,18 +23,22 @@ def batch():
 
 
 def _both(monkeypatch, fn):
-    monkeypatch.setattr(km, "_KMER_BACKEND", "slice")
-    a = fn()
-    monkeypatch.setattr(km, "_KMER_BACKEND", "mxu")
-    b = fn()
-    return a, b
+    """fn() under each backend.  The backend is read at trace time, so each
+    runs the unjitted extractor (`__wrapped__`) under a jit of a NEW
+    function: jit caches traces by function, and a cache hit would silently
+    reuse the first backend's program."""
+    outs = []
+    for backend in ("slice", "mxu"):
+        monkeypatch.setattr(km, "_KMER_BACKEND", backend)
+        outs.append(jax.jit(lambda: fn())())
+    return outs
 
 
 @pytest.mark.parametrize("k,stride", [(13, 2), (13, 1), (14, 2), (11, 3)])
 def test_extract_kmers_backends_equal(batch, monkeypatch, k, stride):
     codes, lens = batch
     (v1, o1), (v2, o2) = _both(
-        monkeypatch, lambda: km.extract_kmers(codes, lens, k, stride)
+        monkeypatch, lambda: km.extract_kmers.__wrapped__(codes, lens, k, stride)
     )
     ok = np.asarray(o1)
     assert (ok == np.asarray(o2)).all()
@@ -45,7 +50,7 @@ def test_extract_canonical_backends_equal(batch, monkeypatch, k, stride):
     codes, lens = batch
     a, b = _both(
         monkeypatch,
-        lambda: km.extract_kmers_canonical(codes, lens, k, stride),
+        lambda: km.extract_kmers_canonical.__wrapped__(codes, lens, k, stride),
     )
     ok = np.asarray(a[2])
     assert (ok == np.asarray(b[2])).all()
@@ -58,7 +63,7 @@ def test_extract_bisulfite_backends_equal(batch, monkeypatch, collapse, mc):
     codes, lens = batch
     (v1, o1), (v2, o2) = _both(
         monkeypatch,
-        lambda: km.extract_kmers(
+        lambda: km.extract_kmers.__wrapped__(
             codes, lens, 13, 2, collapse=collapse, max_collapsed=mc
         ),
     )

@@ -320,3 +320,64 @@ def test_megabatch_scan_matches_separate_calls(setup):
         row = type(single)(*[jnp.asarray(getattr(pstacked, f))[i]
                              for f in single._fields])
         assert_results_equal(single, row)
+
+
+@pytest.mark.parametrize("ish", [1, 2, 4])
+def test_mesh_tables_placed_per_device(setup, ish):
+    """A mesh Mapper places its tables on the mesh devices when it is built:
+    replicated over dp, one position-range row per ish column.  Left on the
+    default device, the whole index would sit there and be copied out again
+    at every step."""
+    from nextgenmap_tpu.models.mapper import Mapper
+
+    class _G:
+        codes = setup["g"]
+
+    cfg = NgmConfig(kmer=K, index_shards=ish, devices=4, batch_size=64)
+    mapper = Mapper(cfg, _G(), 100, index=setup["idx"])
+    mesh_devs = set(jax.local_devices()[:4])
+    if ish == 1:
+        for x in (mapper._genome_dev, mapper._off_dev, mapper._pos_dev):
+            assert x.sharding.device_set == mesh_devs
+            assert x.sharding.is_fully_replicated
+        return
+    pos = mapper._ish_args[2]
+    assert pos.sharding.device_set == mesh_devs
+    rows = mapper._sharded.positions
+    for shard in pos.addressable_shards:
+        s = shard.index[0].start
+        np.testing.assert_array_equal(np.asarray(shard.data)[0], rows[s])
+
+
+@pytest.mark.parametrize("devices", [1, 4])
+def test_pair_straddling_shard_boundary(setup, devices):
+    """A proper pair whose mates lie on both sides of a shard boundary maps
+    as it does unsharded.  The pair comes from the shard owning mate 1, where
+    mate 2 sits in the halo past the core: its score and position must come
+    from there (it used to come back unmapped, with MAPQ from the shard
+    owning mate 2's copy)."""
+    from nextgenmap_tpu.io.encode import revcomp_codes
+    from nextgenmap_tpu.models.mapper import Mapper
+
+    g = setup["g"]
+
+    class _G:
+        codes = g
+
+    S = 4
+    bound = g.shape[0] // S * 2                  # a core boundary (2 of 4)
+    L, pairs = 100, []
+    for p1 in range(bound - 160, bound - 60, 10):   # mate 1 before it
+        p2 = p1 + 250                                # mate 2 past it
+        pairs += [g[p1:p1 + L], revcomp_codes(g[p2:p2 + L])]
+    codes = np.stack(pairs).astype(np.uint8)
+    lens = np.full(codes.shape[0], L, np.int32)
+    cfg = NgmConfig(kmer=K, batch_size=codes.shape[0])
+    want = Mapper(cfg, _G(), L, index=setup["idx"]).map_batch_paired(
+        codes, lens)
+    got = Mapper(cfg.replace(index_shards=S, devices=devices), _G(), L,
+                 index=setup["idx"]).map_batch_paired(codes, lens)
+    assert np.asarray(want.proper).all()
+    for f in ("mapped", "pos", "strand", "score", "mapq", "proper", "n_ops"):
+        np.testing.assert_array_equal(np.asarray(getattr(want, f)),
+                                      np.asarray(getattr(got, f)), f)

@@ -2,10 +2,8 @@
 bit-identical to the per-element gather path whenever the word budget
 suffices, and loudly counted when it does not.
 
-The path exists because XLA's flat element gather costs ~11-24 ns PER
-DESCRIPTOR on v5e regardless of table size (tools/probe_gather3.py), so
-fetching positions as [B, HW] 8-wide rows instead of [B, H] elements removes
-the measured CS wall (BASELINE.md round 4).
+The path fetches positions as [B, HW] 8-wide rows instead of [B, H]
+elements: one gather index per row of up to 8 hits instead of one per hit.
 """
 
 import numpy as np

@@ -1,5 +1,5 @@
 """Host-only prebuild of the run_config4 workspace (FASTA + reads + sharded
-index artifacts) so the TPU-facing CLI run starts with zero host build work.
+index artifacts) so the device-facing CLI run starts with zero host build work.
 
 Honors the same env knobs as tools/run_config4.py (NGM_C4_GBP, NGM_C4_DIR,
 NGM_C4_MODE, NGM_C4_K, NGM_C4_SHARDS).  Runs entirely on the CPU backend.
